@@ -2,21 +2,21 @@
 
 Run:  JAX_PLATFORMS=cpu python benchmarks/light_pick_variance.py [--json f]
 
-VERDICT r4 item 4: above 4 lights the megakernel (and the non-regen
-wavefront engine) picks ONE light ordinal per (sample, bounce) for the
-whole frame — a scalar pick, because per-lane SMEM gathers don't exist on
-TPU — while the jax path and the regenerating pool pick per lane.  Same
+Above 4 lights the megakernel (and the non-regen wavefront engine) picks
+ONE light ordinal per (sample, bounce) for the whole frame — a scalar
+pick, read by scalar loads shared by the whole block — while the jax path
+and the regenerating pool pick per lane.  Same
 estimator, but at spp=s with L lights every pixel shares the same
 s x depth light choices: structured, frame-correlated noise.  r3 measured
-the gap at 6 lights (~0.3% at 1 spp, nil by 8 spp — docs/PERFORMANCE.md);
-this script measures the scaling case the verdict asked for: ~32 lights,
+the gap at 6 lights (~0.3% at 1 spp, nil by 8 spp); this script measures
+the scaling case: ~32 lights,
 variance-vs-spp curves at EQUAL sample cost, plus MIS on top.
 
 Method: 64x48, depth 4, black sky, a 31-emissive-sphere ring + floor +
 diffuse hero.  For each spp in {1, 4, 16}: render N independent frames
 (different frame seeds) with (a) backend='jax' (per-lane pick) and
 (b) backend='pallas' in interpret mode (the scalar shared-pick stream —
-bitwise the engine the chip runs), and report mean MSE against a
+the same stream the compiled engine draws), and report mean MSE against a
 converged per-lane reference (jax, 2048 spp).  Equal cost: both engines
 trace exactly spp samples through the identical path stream; only the
 pick index stream differs.
@@ -37,9 +37,9 @@ import numpy as np
 
 jax.config.update("jax_platforms", "cpu")
 
-from gpu_ray_tracing_tpu import RenderConfig, make_scene, render
-from gpu_ray_tracing_tpu.models.camera import CameraSettings
-from gpu_ray_tracing_tpu.models.spheres import (
+from gpu_ray_tracing import RenderConfig, make_scene, render
+from gpu_ray_tracing.models.camera import CameraSettings
+from gpu_ray_tracing.models.spheres import (
     EMISSIVE,
     LAMBERTIAN,
     make_spheres,

@@ -24,15 +24,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     RenderConfig,
     cornell_box_scene,
     cornell_camera,
     render,
 )
-from gpu_ray_tracing_tpu.utils.image import write_image
+from gpu_ray_tracing import platform
+from gpu_ray_tracing.utils.image import write_image
+
+platform.use_compile_cache()
 
 
 def main(argv=None) -> int:
@@ -53,7 +54,7 @@ def main(argv=None) -> int:
 
     backend = args.backend
     if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jax"
+        backend = "pallas" if platform.target() == "gpu" else "jax"
     scene = cornell_box_scene(light_intensity=args.light)
     cfg = RenderConfig(
         width=args.width, height=args.height, spp=args.spp,

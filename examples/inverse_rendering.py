@@ -23,8 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu import CameraSettings, RenderConfig, base_scene, render
-from gpu_ray_tracing_tpu.utils.image import write_image
+from gpu_ray_tracing import CameraSettings, RenderConfig, base_scene, platform, render
+from gpu_ray_tracing.utils.image import write_image
 
 CAMERA = CameraSettings(
     look_from=jnp.asarray([0.0, 0.3, 1.5]),
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
 
     backend = args.backend
     if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jax"
+        backend = "pallas" if platform.target() == "gpu" else "jax"
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=6, backend=backend)
     scene = base_scene()

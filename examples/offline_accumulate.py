@@ -1,14 +1,12 @@
-"""Offline high-spp accumulation: batched regenerating steps + checkpoints.
+"""Offline high-spp accumulation: batched steps + checkpoints.
 
 The production shape for converging a frame to hundreds of samples when no
 one is watching frame-by-frame (the reference can only accumulate 1 spp per
 displayed frame, compute_shader.wgsl:352-358):
 
   - `progressive_step(spp_per_step=k)` folds k samples per step (weighted
-    incremental mean), cutting per-step dispatch overhead by k;
-  - `RenderConfig(regenerate='auto')` turns on wavefront ray regeneration,
-    which overlaps one sample's deep-bounce tail with the next sample's
-    primary rays inside each batched step (+8% measured at depth 20 + RR);
+    incremental mean), cutting per-step dispatch overhead by k; on the GPU
+    each step is one megakernel launch;
   - the accumulation state checkpoints to .npz every few windows, so a
     multi-hour render survives preemption and resumes exactly (the state is
     the running mean + count; the counter-based RNG draws sample `count`
@@ -30,7 +28,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
+from gpu_ray_tracing import platform
+
+platform.use_compile_cache()
 
 
 def main(argv=None) -> int:
@@ -51,21 +51,19 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="render.png")
     args = ap.parse_args(argv)
 
-    import gpu_ray_tracing_tpu as rt
-    from gpu_ray_tracing_tpu.utils.checkpoint import (
+    import gpu_ray_tracing as rt
+    from gpu_ray_tracing.utils.checkpoint import (
         load_accum,
         render_fingerprint,
         save_accum,
     )
-    from gpu_ray_tracing_tpu.utils.image import write_image
+    from gpu_ray_tracing.utils.image import write_image
 
     scene = jax.device_put(rt.make_scene(rt.one_weekend_scene(jax.random.key(0))))
-    backend = "wavefront" if jax.default_backend() == "tpu" else "jax"
+    backend = "pallas" if rt.platform.target() == "gpu" else "jax"
     cfg = rt.RenderConfig(
         width=args.width, height=args.height, spp=args.spp,
         max_depth=args.depth, backend=backend,
-        # regeneration is a wavefront-engine mode
-        regenerate="auto" if backend == "wavefront" else "off",
         russian_roulette_depth=args.rr,
     )
     cam = rt.CameraSettings.default()

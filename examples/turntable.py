@@ -20,7 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
+from gpu_ray_tracing import platform
+
+platform.use_compile_cache()
 
 
 def main(argv=None) -> int:
@@ -34,12 +36,12 @@ def main(argv=None) -> int:
     ap.add_argument("--fps", type=int, default=12)
     args = ap.parse_args(argv)
 
-    import gpu_ray_tracing_tpu as rt
-    from gpu_ray_tracing_tpu.models.camera import orbit_yaw
-    from gpu_ray_tracing_tpu.utils.image import to_uint8, tonemap
+    import gpu_ray_tracing as rt
+    from gpu_ray_tracing.models.camera import orbit_yaw
+    from gpu_ray_tracing.utils.image import to_uint8, tonemap
 
     scene = rt.make_scene(rt.one_weekend_scene(jax.random.key(0)))
-    backend = "pallas" if jax.default_backend() == "tpu" else "jax"
+    backend = "pallas" if rt.platform.target() == "gpu" else "jax"
     cfg = rt.RenderConfig(
         width=args.width, height=args.height, spp=args.spp, max_depth=args.depth,
         backend=backend, russian_roulette_depth=4,
@@ -58,7 +60,7 @@ def main(argv=None) -> int:
     try:
         from PIL import Image
     except ImportError:
-        from gpu_ray_tracing_tpu.utils.image import write_ppm
+        from gpu_ray_tracing.utils.image import write_ppm
 
         os.makedirs("turntable_frames", exist_ok=True)
         for i, f in enumerate(frames):

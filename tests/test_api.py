@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     CameraSettings,
     RenderConfig,
     base_scene,
@@ -17,7 +17,7 @@ from gpu_ray_tracing_tpu import (
     render_progressive,
     stack_camera_track,
 )
-from gpu_ray_tracing_tpu.models import camera as cam_ops
+from gpu_ray_tracing.models import camera as cam_ops
 
 BASE_CAMERA = CameraSettings(
     look_from=jnp.asarray([0.0, 0.0, 1.0]),
@@ -159,9 +159,9 @@ def test_threefry_chunked_blocks_draw_independent_streams(monkeypatch):
     scatter/RR draw stream (tiled correlated noise whose layout depended on
     the platform-chosen block size).  Pin the contract: chunked block i ==
     an unchunked trace of those rays under fold_in(key, i)."""
-    from gpu_ray_tracing_tpu import api as api_mod
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing import api as api_mod
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     h, w = 8, 64
     scene = base_scene()
@@ -190,8 +190,8 @@ def test_feature_matrix_smoke():
     through the public API on every applicable backend and agrees with the
     jax backend to image tolerance.  Catches feature pairs no focused test
     exercises together (e.g. NEE+RR+regen on an odd frame)."""
-    from gpu_ray_tracing_tpu import make_scene, one_weekend_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene, one_weekend_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
     from tests.test_sharding import assert_images_match
 
     lit = make_scene(make_spheres([
@@ -231,10 +231,10 @@ def test_feature_matrix_smoke_sharded_interleaved():
     matrix: NEE/RR/regen combinations through render_sharded with
     row_partition='interleaved' on the 8-device CPU mesh, against the
     unsharded jax image."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
-    from gpu_ray_tracing_tpu.parallel.mesh import make_mesh
-    from gpu_ray_tracing_tpu.parallel.sharding import render_sharded
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing.parallel.mesh import make_mesh
+    from gpu_ray_tracing.parallel.sharding import render_sharded
     from tests.test_sharding import assert_images_match
 
     lit = make_scene(make_spheres([
@@ -288,7 +288,7 @@ def test_fold_sample_straddling_batch_folds_taken_fraction():
     straddles the target; fold_sample folds only the taken fraction so the
     count freezes exactly at spp_target (r3 review finding — the static
     divisibility check in progressive_step cannot see a resumed count)."""
-    from gpu_ray_tracing_tpu.ops.accumulate import AccumState, fold_sample
+    from gpu_ray_tracing.ops.accumulate import AccumState, fold_sample
 
     state = AccumState(rgb=jnp.full((2, 2, 3), 1.0), count=jnp.int32(3))
     batch = jnp.full((2, 2, 3), 5.0)  # mean of 8 fresh samples
@@ -413,8 +413,8 @@ def test_invalid_config_rejected():
 
 def test_render_vmappable_over_cameras():
     """The API claim: render is vmappable (e.g. a batch of camera poses)."""
-    import gpu_ray_tracing_tpu as rt
-    from gpu_ray_tracing_tpu.models.camera import derive_camera, orbit_yaw
+    import gpu_ray_tracing as rt
+    from gpu_ray_tracing.models.camera import derive_camera, orbit_yaw
 
     scene = base_scene()
     cfg = _cfg(width=24, height=16, spp=1, max_depth=3)
@@ -457,8 +457,8 @@ def test_russian_roulette_pallas_matches_jax():
 def _light_scene():
     import dataclasses
 
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     spheres = make_spheres(
         [
@@ -652,8 +652,8 @@ def test_clamp_bounds_samples_and_is_engine_invariant():
     """Per-sample radiance clamp (firefly control): every engine scales
     each sample's rgb to a max channel of `clamp` with the identical
     arithmetic, and progressive accumulation matches the one-shot render."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import (
         DIELECTRIC, EMISSIVE, LAMBERTIAN, make_spheres,
     )
 

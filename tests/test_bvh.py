@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.mesh import box, icosphere, torus, transform_mesh
-from gpu_ray_tracing_tpu.models.scene import intersect_scene, make_scene
-from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, METAL, base_scene, make_spheres
-from gpu_ray_tracing_tpu.ops.bvh import build_mesh_bvh, validate_bvh
-from gpu_ray_tracing_tpu.ops.intersect import intersect_bvh, intersect_triangles
+from gpu_ray_tracing.models.mesh import box, icosphere, torus, transform_mesh
+from gpu_ray_tracing.models.scene import intersect_scene, make_scene
+from gpu_ray_tracing.models.spheres import LAMBERTIAN, METAL, base_scene, make_spheres
+from gpu_ray_tracing.ops.bvh import build_mesh_bvh, validate_bvh
+from gpu_ray_tracing.ops.intersect import intersect_bvh, intersect_triangles
 
 TMIN, TMAX = 1e-3, 3.4e35
 
@@ -101,7 +101,7 @@ def test_scene_union_mesh_wins():
 
 def test_render_mesh_scene_end_to_end():
     """BASELINE config-4 slice: render a BVH mesh scene through the API."""
-    import gpu_ray_tracing_tpu as rt
+    import gpu_ray_tracing as rt
 
     spheres = base_scene()
     mesh = transform_mesh(icosphere(2, albedo=(0.8, 0.4, 0.2)), scale=0.4,
@@ -131,7 +131,7 @@ def test_render_mesh_scene_end_to_end():
 
 def test_pallas_backend_renders_mesh():
     """Mesh scenes run through the megakernel's in-kernel BVH traversal."""
-    import gpu_ray_tracing_tpu as rt
+    import gpu_ray_tracing as rt
 
     scene = make_scene(base_scene(), transform_mesh(box(), translate=(0.5, 0.0, -1.0)))
     cfg = rt.RenderConfig(width=32, height=16, spp=1, max_depth=3, backend="pallas")

@@ -5,7 +5,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models import camera as cam
+from gpu_ray_tracing.models import camera as cam
 
 
 def _np_derive(look_from, look_at, vup, fov, defocus_angle, focus_dist, w_px, h_px):
@@ -132,7 +132,7 @@ def test_degenerate_camera_rejected_eagerly():
     NaNs; eager derive_camera / the CLI now reject them up front."""
     import pytest
 
-    from gpu_ray_tracing_tpu.models.camera import (
+    from gpu_ray_tracing.models.camera import (
         CameraSettings,
         derive_camera,
         validate_camera,

@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.api import render, render_denoised
-from gpu_ray_tracing_tpu.models.camera import CameraSettings
-from gpu_ray_tracing_tpu.models.spheres import base_scene
-from gpu_ray_tracing_tpu.ops.denoise import atrous_denoise, decode_normal_aov
-from gpu_ray_tracing_tpu.utils.config import RenderConfig
+from gpu_ray_tracing.api import render, render_denoised
+from gpu_ray_tracing.models.camera import CameraSettings
+from gpu_ray_tracing.models.spheres import base_scene
+from gpu_ray_tracing.ops.denoise import atrous_denoise, decode_normal_aov
+from gpu_ray_tracing.utils.config import RenderConfig
 
 
 def _noisy_step_image(key, h=48, w=64, noise=0.25):

@@ -1,14 +1,13 @@
-"""Driver-shaped gate tests (VERDICT r2 items 1-3).
+"""Entry-point tests outside the suite's CPU pin.
 
-Round 2's multi-chip gate failed ONLY in the driver's environment: a
-TPU-default process driving a CPU mesh.  The whole test suite runs with
-JAX_PLATFORMS=cpu (conftest), so `jax.default_backend()`-keyed bugs were
-invisible to all 209 green tests.  These tests close that hole:
+The whole test suite runs with JAX_PLATFORMS=cpu (conftest), so bugs keyed
+on `jax.default_backend()` would be invisible to it.  These tests close
+that hole:
 
   - a subprocess runs `dryrun_multichip(8)` WITHOUT the conftest platform
-    forcing — the exact shape the driver invokes (default platform resolves
-    to whatever the machine has, possibly a real TPU; the mesh is the
-    virtual CPU pool; Pallas interpret must key off the MESH devices);
+    forcing (the default platform resolves to whatever the machine has,
+    possibly a GPU; the mesh is the virtual CPU pool; Pallas interpret
+    mode must key off the MESH devices);
   - gradients through `backend='wavefront', regenerate='on'` (the custom
     VJP replays on the jax backend and must drop the wavefront-only flag).
 """
@@ -23,37 +22,37 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu import RenderConfig, base_scene, render
+from gpu_ray_tracing import RenderConfig, base_scene, render
 from tests.test_api import BASE_CAMERA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_dryrun_multichip_in_driver_environment():
-    """The driver gate must be green WITHOUT the suite's JAX_PLATFORMS=cpu.
+    """The dry run must be green WITHOUT the suite's JAX_PLATFORMS=cpu.
 
     The subprocess env drops the conftest's platform pin, so JAX resolves
-    its real default backend (a TPU on the bench machine) while the dryrun
-    builds its CPU mesh — the configuration that was red in round 2.
+    its real default backend (a GPU where there is one) while the dry run
+    builds its CPU mesh.
     """
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)  # undo conftest forcing -> driver shape
+    env.pop("JAX_PLATFORMS", None)  # undo the conftest's CPU pin
     proc = subprocess.run(
         [sys.executable, "-c",
          "import __graft_entry__ as g; g.dryrun_multichip(8); print('GATE_OK')"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=560,
     )
     assert proc.returncode == 0, (
-        f"dryrun_multichip(8) failed in driver-shaped env:\n"
+        f"dryrun_multichip(8) failed without the CPU pin:\n"
         f"stdout: {proc.stdout[-2000:]}\nstderr: {proc.stderr[-4000:]}"
     )
     assert "GATE_OK" in proc.stdout
 
 
 def test_grad_through_wavefront_regenerate():
-    """jax.grad through the regenerating wavefront engine (crashed in r2:
-    the VJP backward's jax-backend replay config kept regenerate='on',
-    which RenderConfig rejects for backend='jax')."""
+    """jax.grad through the regenerating wavefront engine: the VJP
+    backward's jax-backend replay config must drop regenerate='on', which
+    RenderConfig rejects for backend='jax'."""
     scene = base_scene()
     cfg = RenderConfig(
         width=16, height=12, spp=2, max_depth=3,

@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     CameraSettings,
     RenderConfig,
     base_scene,
@@ -65,9 +65,8 @@ def test_golden_one_weekend():
 
 def test_golden_parity_check_cases():
     """The on-chip parity harness's extended cases (nee+mis, sobol, mesh —
-    benchmarks/parity_check.py, the PARITY_r0N artifact generator) stay
-    pinned on CPU too: a drift here would silently invalidate the on-TPU
-    correctness record's baseline."""
+    benchmarks/parity_check.py) stay pinned on CPU too: a drift here would
+    silently invalidate the on-card correctness check's baseline."""
     from benchmarks.parity_check import _cases
 
     extended = {"nee_mis_48x36.npy", "sobol_base_48x32.npy",
@@ -103,8 +102,8 @@ def test_golden_nee_emissive():
     """Pins the NEE + emissive + RR streams (salt layout 2000+37i+7l)."""
     import dataclasses
 
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     scene = make_scene(make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),

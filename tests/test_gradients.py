@@ -30,16 +30,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu import RenderConfig, make_scene, render
-from gpu_ray_tracing_tpu.models.camera import derive_camera
-from gpu_ray_tracing_tpu.models.mesh import make_mesh
-from gpu_ray_tracing_tpu.models.spheres import (
+from gpu_ray_tracing import RenderConfig, make_scene, render
+from gpu_ray_tracing.models.camera import derive_camera
+from gpu_ray_tracing.models.mesh import make_mesh
+from gpu_ray_tracing.models.spheres import (
     EMISSIVE,
     LAMBERTIAN,
     make_spheres,
 )
-from gpu_ray_tracing_tpu.ops import rays as rays_ops
-from gpu_ray_tracing_tpu.ops.integrators import trace_path
+from gpu_ray_tracing.ops import rays as rays_ops
+from gpu_ray_tracing.ops.integrators import trace_path
 from tests.test_api import BASE_CAMERA
 
 W, H = 24, 16

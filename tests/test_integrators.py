@@ -6,20 +6,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.spheres import (
+from gpu_ray_tracing.models.spheres import (
     DIELECTRIC,
     LAMBERTIAN,
     METAL,
     base_scene,
     make_spheres,
 )
-from gpu_ray_tracing_tpu.ops.integrators import (
+from gpu_ray_tracing.ops.integrators import (
     make_bounce_seeds,
     shade_normals,
     sky_color,
     trace_path,
 )
-from gpu_ray_tracing_tpu.ops.rng import wgsl_hash
+from gpu_ray_tracing.ops.rng import wgsl_hash
 
 TMIN, TMAX = 1e-3, 3.4e35
 
@@ -91,7 +91,7 @@ def test_lambertian_single_bounce_exact():
     seeds = jnp.asarray([123456], jnp.uint32)
     out = _trace([[0, 5, 0]], [[0, -1, 0]], scene, depth=1, seeds=seeds, parity=True)
     # After 1 bounce the ray is live; parity mode adds sky * throughput.
-    from gpu_ray_tracing_tpu.ops.rng import random_unit_vector
+    from gpu_ray_tracing.ops.rng import random_unit_vector
 
     uv = np.asarray(random_unit_vector(jnp.uint32(123456)))
     bounce_dir = np.array([0.0, 1.0, 0.0]) + uv  # normal + unit vector
@@ -174,8 +174,8 @@ def test_trace_requires_exactly_one_rng():
 def test_parity_rim_defocus_quirk():
     """parity=True samples the defocus disk RIM (wgsl:327-331): all lens
     offsets have radius exactly defocus_radius; parity=False fills the disk."""
-    from gpu_ray_tracing_tpu.models.camera import CameraSettings, derive_camera
-    from gpu_ray_tracing_tpu.ops.rays import generate_rays_wgsl
+    from gpu_ray_tracing.models.camera import CameraSettings, derive_camera
+    from gpu_ray_tracing.ops.rays import generate_rays_wgsl
 
     settings = CameraSettings.default()  # defocus_angle 0.6 deg
     cam = derive_camera(settings, 64, 64)
@@ -195,7 +195,7 @@ def test_parity_rim_defocus_quirk():
 def test_emissive_sphere_radiates():
     """A dark scene lit by an emissive sphere: light pixels at the source,
     illuminated floor nearby, black elsewhere."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE
+    from gpu_ray_tracing.models.spheres import EMISSIVE
 
     scene = make_spheres(
         [
@@ -252,9 +252,9 @@ def test_nee_estimator_matches_analytic_irradiance():
     constant end-to-end."""
     import dataclasses
 
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
-    from gpu_ray_tracing_tpu.ops.integrators import trace_path
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing.ops.integrators import trace_path
 
     albedo, le, lr, h = 0.6, 5.0, 0.5, 2.0
     scene = make_scene(make_spheres([
@@ -283,8 +283,8 @@ def _many_lights_fixture():
     hemisphere, positioned so no light occludes another's shadow ray from
     the probe point (the pick-one vs loop-over-all comparison then sees
     identical visibility)."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     albedo = 0.7
     lights = [
@@ -333,8 +333,8 @@ def test_trace_path_strata_requires_counter_stream_inputs():
     sample index + frame seed alongside the pixel seeds."""
     import pytest
 
-    from gpu_ray_tracing_tpu import base_scene
-    from gpu_ray_tracing_tpu.ops import integrators
+    from gpu_ray_tracing import base_scene
+    from gpu_ray_tracing.ops import integrators
 
     o = jnp.zeros((4, 3), jnp.float32)
     d = jnp.tile(jnp.asarray([0.0, 0.0, -1.0], jnp.float32), (4, 1))
@@ -348,9 +348,9 @@ def test_trace_path_strata_requires_counter_stream_inputs():
 
 def _mis_scene_and_cam(light):
     """Ground + red sphere + one emissive light, camera on the spheres."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.camera import CameraSettings, derive_camera
-    from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.camera import CameraSettings, derive_camera
+    from gpu_ray_tracing.models.spheres import LAMBERTIAN, make_spheres
 
     scene = make_scene(make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
@@ -372,7 +372,7 @@ def _render_estimator_jit(scene, cam, frame_seed, nee, mis, spp):
     # module-level jit: a per-call inner closure retraced on EVERY
     # invocation (the old shape cost ~2 min of suite wall time in
     # recompiles across the estimator tests)
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     acc = jnp.zeros((32, 48, 3), jnp.float32)
 
@@ -397,7 +397,7 @@ def test_mis_unbiased_and_reduces_variance_large_light():
     hovering just above the ground (near it the cone fills the hemisphere,
     where cosine BSDF rays are the better strategy; measured ~1.2x lower
     MSE at 8 spp)."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE
+    from gpu_ray_tracing.models.spheres import EMISSIVE
 
     scene, cam = _mis_scene_and_cam(
         ((0.0, 3.1, -2.0), 3.0, EMISSIVE, (1.0, 0.9, 0.7), 1.0))
@@ -424,7 +424,7 @@ def test_mis_unbiased_and_reduces_variance_large_light():
 def test_mis_equals_nee_for_small_lights():
     """For a small bright light the cone pdf dominates every weight, so MIS
     degrades gracefully to (almost exactly) the plain NEE estimator."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE
+    from gpu_ray_tracing.models.spheres import EMISSIVE
 
     scene, cam = _mis_scene_and_cam(
         ((0.8, 2.2, -1.6), 0.15, EMISSIVE, (1.0, 0.9, 0.7), 40.0))
@@ -438,7 +438,7 @@ def test_mis_equals_nee_for_small_lights():
 def test_mis_validation():
     import pytest
 
-    from gpu_ray_tracing_tpu import RenderConfig, base_scene
+    from gpu_ray_tracing import RenderConfig, base_scene
 
     with pytest.raises(ValueError, match="mis"):
         RenderConfig(mis=True)  # requires nee
@@ -455,8 +455,8 @@ def test_mis_no_depth_truncation_bias():
     is never traced), so shallow-depth MIS must not render darker than
     plain NEE — with the naive weight the huge-light scene lost ~tens of
     percent of the final vertex's direct light at depth 2."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.models.spheres import EMISSIVE
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     scene, cam = _mis_scene_and_cam(
         ((0.0, 3.1, -2.0), 3.0, EMISSIVE, (1.0, 0.9, 0.7), 1.0))
@@ -484,8 +484,8 @@ def test_nee_distant_light_no_underflow():
     ~5000 radii away must still illuminate diffuse surfaces under NEE (the
     naive 1 - sqrt(1 - r^2/d^2) underflows to 0 there, deleting the light's
     whole contribution while BSDF-hit emission stays suppressed)."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.models.spheres import EMISSIVE
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     # r=0.15 at distance ~750 -> r^2/d^2 ~ 4e-8 < f32 ulp of 1.0.
     scene, cam = _mis_scene_and_cam(
@@ -505,10 +505,10 @@ def test_mis_gradients_finite_with_overlapping_light():
     cotangents there)."""
     import dataclasses
 
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.camera import CameraSettings, derive_camera
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, make_spheres
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.camera import CameraSettings, derive_camera
+    from gpu_ray_tracing.models.spheres import EMISSIVE, make_spheres
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     scene = make_scene(make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),

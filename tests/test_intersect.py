@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, make_spheres
-from gpu_ray_tracing_tpu.ops.intersect import intersect_spheres
+from gpu_ray_tracing.models.spheres import LAMBERTIAN, make_spheres
+from gpu_ray_tracing.ops.intersect import intersect_spheres
 
 TMIN, TMAX = 1e-3, 3.4e35
 

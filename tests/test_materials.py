@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.spheres import DIELECTRIC, LAMBERTIAN, METAL
-from gpu_ray_tracing_tpu.ops.materials import reflect, reflectance, refract, scatter
+from gpu_ray_tracing.models.spheres import DIELECTRIC, LAMBERTIAN, METAL
+from gpu_ray_tracing.ops.materials import reflect, reflectance, refract, scatter
 
 
 def _scatter_one(kind, ray_dir, normal, front_face=True, albedo=(0.5, 0.5, 0.5),

@@ -5,7 +5,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.mesh import (
+from gpu_ray_tracing.models.mesh import (
     box,
     icosphere,
     load_obj,
@@ -13,7 +13,7 @@ from gpu_ray_tracing_tpu.models.mesh import (
     torus,
     transform_mesh,
 )
-from gpu_ray_tracing_tpu.ops.intersect import intersect_triangles
+from gpu_ray_tracing.ops.intersect import intersect_triangles
 
 TMIN, TMAX = 1e-3, 3.4e35
 
@@ -109,9 +109,9 @@ def test_obj_quad_fan_and_negative_indices(tmp_path):
 
 
 def test_merge_meshes_and_render():
-    from gpu_ray_tracing_tpu import make_scene, merge_meshes, transform_mesh
-    from gpu_ray_tracing_tpu.models.spheres import METAL, base_scene
-    from gpu_ray_tracing_tpu.ops.bvh import validate_bvh
+    from gpu_ray_tracing import make_scene, merge_meshes, transform_mesh
+    from gpu_ray_tracing.models.spheres import METAL, base_scene
+    from gpu_ray_tracing.ops.bvh import validate_bvh
 
     a = transform_mesh(box(), translate=(-1.0, 0.0, -2.0))
     b = transform_mesh(icosphere(1, albedo=(0.9, 0.2, 0.2), mat_kind=METAL),
@@ -168,7 +168,7 @@ def test_triangle_fuzz_vs_float64_model():
 def test_smooth_vertex_normals_icosphere():
     """On a unit icosphere, the area-weighted vertex normal equals the vertex
     direction (by symmetry), and interpolation removes faceting."""
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
+    from gpu_ray_tracing.models.mesh import icosphere
 
     mesh = icosphere(2, smooth=True)
     assert mesh.smooth
@@ -182,8 +182,8 @@ def test_smooth_vertex_normals_icosphere():
 
 
 def test_smooth_normals_through_bvh_and_merge():
-    from gpu_ray_tracing_tpu.models.mesh import box, icosphere, merge_meshes
-    from gpu_ray_tracing_tpu.ops.bvh import build_mesh_bvh
+    from gpu_ray_tracing.models.mesh import box, icosphere, merge_meshes
+    from gpu_ray_tracing.ops.bvh import build_mesh_bvh
 
     merged = merge_meshes(icosphere(1, smooth=True), box())
     assert merged.smooth  # flat part degraded to n0=n1=n2=face normal
@@ -208,9 +208,9 @@ def test_smooth_normals_through_bvh_and_merge():
 def test_smooth_normal_interpolation_jax_path():
     """A ray hitting a smooth icosphere returns the interpolated (near-
     spherical) normal, not the face normal."""
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.ops.bvh import build_mesh_bvh
-    from gpu_ray_tracing_tpu.ops.intersect import intersect_bvh
+    from gpu_ray_tracing.models.mesh import icosphere
+    from gpu_ray_tracing.ops.bvh import build_mesh_bvh
+    from gpu_ray_tracing.ops.intersect import intersect_bvh
 
     mesh, bvh = build_mesh_bvh(icosphere(2, smooth=True))
     o = jnp.asarray([[0.0, 0.0, 3.0]], jnp.float32)
@@ -222,24 +222,12 @@ def test_smooth_normal_interpolation_jax_path():
     np.testing.assert_allclose(np.asarray(h.normal[0]), [0.0, 0.0, 1.0], atol=5e-3)
 
 
-def test_make_scene_grows_leaf_size_for_large_meshes():
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.models.spheres import base_scene
-    from gpu_ray_tracing_tpu.ops.pallas.megakernel import MAX_PALLAS_BVH_NODES
-
-    mesh = icosphere(5)  # 20480 triangles -> >8192 nodes at leaf 4
-    scene = make_scene(base_scene(), mesh)
-    assert scene.bvh.num_nodes <= MAX_PALLAS_BVH_NODES
-    assert scene.bvh_leaf_size > 4
-
-
 def test_trefoil_generator():
     """Trefoil tube: right counts, watertight (every edge shared by exactly
     two faces), and smooth corner normals roughly radial to the tube."""
     from collections import Counter
 
-    from gpu_ray_tracing_tpu.models.mesh import trefoil
+    from gpu_ray_tracing.models.mesh import trefoil
 
     nu, nv = 64, 12
     mesh = trefoil(nu=nu, nv=nv, smooth=True)

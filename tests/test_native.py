@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import native
-from gpu_ray_tracing_tpu.models.mesh import icosphere, torus
-from gpu_ray_tracing_tpu.ops.bvh import build_mesh_bvh, validate_bvh
-from gpu_ray_tracing_tpu.ops.intersect import intersect_bvh
+from gpu_ray_tracing import native
+from gpu_ray_tracing.models.mesh import icosphere, torus
+from gpu_ray_tracing.ops.bvh import build_mesh_bvh, validate_bvh
+from gpu_ray_tracing.ops.intersect import intersect_bvh
 
 import jax.numpy as jnp
 
@@ -69,7 +69,7 @@ def test_native_sah_produces_fewer_node_visits():
 
 @native_only
 def test_native_single_primitive():
-    from gpu_ray_tracing_tpu.ops.bvh import build_bvh
+    from gpu_ray_tracing.ops.bvh import build_bvh
 
     bvh, order = build_bvh(
         np.zeros((1, 3)), np.zeros((1, 3)) - 1, np.zeros((1, 3)) + 1, method="native"
@@ -88,7 +88,7 @@ def test_native_adversarial_depth_no_stack_overflow():
     """Exponentially skewed centroid spacing makes SAH peel a handful of
     primitives per level -> O(n)-depth trees; the builder must survive
     (iterative job stack, not C recursion) and emit a valid layout."""
-    from gpu_ray_tracing_tpu.ops.bvh import build_bvh
+    from gpu_ray_tracing.ops.bvh import build_bvh
 
     n = 20000
     x = np.linspace(0, 1, n) ** 8 * 1e12
@@ -101,7 +101,7 @@ def test_native_adversarial_depth_no_stack_overflow():
 def test_build_bvh_validates_inputs():
     import pytest
 
-    from gpu_ray_tracing_tpu.ops.bvh import build_bvh
+    from gpu_ray_tracing.ops.bvh import build_bvh
 
     z = np.zeros((0, 3))
     with pytest.raises(ValueError, match="zero primitives"):
@@ -115,7 +115,7 @@ def test_f32_bounds_round_outward():
     """Narrowing float64 primitive bounds to f32 must round outward so no
     node box shrinks below the extent it covers (a grazing hit culled by a
     half-ulp-short box is a BVH-vs-brute mismatch)."""
-    from gpu_ray_tracing_tpu.ops.bvh import build_bvh
+    from gpu_ray_tracing.ops.bvh import build_bvh
 
     # Values chosen to NOT be f32-representable.
     hi = 1.0 + 1e-9
@@ -131,7 +131,7 @@ def test_f32_bounds_round_outward():
 def test_transform_mesh_rejects_negative_scale():
     import pytest
 
-    from gpu_ray_tracing_tpu.models.mesh import transform_mesh
+    from gpu_ray_tracing.models.mesh import transform_mesh
 
     with pytest.raises(ValueError, match="scale"):
         transform_mesh(icosphere(1), scale=-1.0)

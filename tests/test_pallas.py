@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     CameraSettings,
     RenderConfig,
     base_scene,
     one_weekend_scene,
     render,
 )
-from gpu_ray_tracing_tpu.ops.pallas.megakernel import scene_planes
+from gpu_ray_tracing.ops.pallas.megakernel import scene_planes
 from tests.test_api import BASE_CAMERA
 from tests.test_sharding import assert_images_match
 
@@ -72,8 +72,8 @@ def test_pallas_spp_accumulation():
     """render(spp=4) must equal the mean of the four 1-spp passes it folds
     (sample_index 0..3, same frame seed) — replicated via render_pallas
     directly, which exposes sample_index."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.megakernel import render_pallas
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.megakernel import render_pallas
 
     scene = base_scene()
     cfg = _cfg(spp=4, backend="pallas")
@@ -122,7 +122,7 @@ def test_pallas_nee_many_lights_matches_jax_mean():
 
 
 def test_pallas_non_tile_aligned_resolution():
-    """Width*height not a multiple of the 4096-pixel tile: padding must be
+    """Width*height not a multiple of the pixel block: padding must be
     transparent."""
     scene = base_scene()
     cfg_p = _cfg(width=50, height=31, backend="pallas")
@@ -144,9 +144,9 @@ def test_pallas_requires_hash_rng():
 
 def test_pallas_mesh_scene_matches_jax():
     """Tile-coherent in-kernel BVH traversal == the XLA traversal."""
-    from gpu_ray_tracing_tpu import make_scene, transform_mesh
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, METAL, make_spheres
+    from gpu_ray_tracing import make_scene, transform_mesh
+    from gpu_ray_tracing.models.mesh import icosphere
+    from gpu_ray_tracing.models.spheres import LAMBERTIAN, METAL, make_spheres
 
     spheres = make_spheres(
         [
@@ -175,26 +175,9 @@ def test_pallas_mesh_scene_matches_jax():
         assert_images_match(a, b, flip_frac=0.02, mean_tol=2e-3)
 
 
-def test_pallas_mesh_size_cap():
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.models.scene import Scene
-    from gpu_ray_tracing_tpu.ops.pallas import megakernel as mk
-
-    old = mk.MAX_PALLAS_TRIANGLES
-    mk.MAX_PALLAS_TRIANGLES = 100
-    try:
-        scene = make_scene(base_scene(), icosphere(2))
-        cfg = _cfg(backend="pallas")
-        with pytest.raises(ValueError):
-            render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(0))
-    finally:
-        mk.MAX_PALLAS_TRIANGLES = old
-
-
 def test_pallas_mesh_requires_bvh():
-    from gpu_ray_tracing_tpu.models.mesh import box
-    from gpu_ray_tracing_tpu.models.scene import Scene
+    from gpu_ray_tracing.models.mesh import box
+    from gpu_ray_tracing.models.scene import Scene
 
     scene = Scene(spheres=base_scene(), mesh=box(), bvh=None)
     cfg = _cfg(backend="pallas")
@@ -204,9 +187,9 @@ def test_pallas_mesh_requires_bvh():
 
 def test_pallas_sphere_bvh_matches_bruteforce():
     """The culled sphere-BVH kernel must match the brute-force scan.
-    sphere_bvh=True forces the BVH (197 spheres sits below the post-unroll
-    default threshold of 256, where the unrolled scan measures faster)."""
-    from gpu_ray_tracing_tpu import make_scene
+    sphere_bvh=True forces the BVH (197 spheres sits below the default
+    threshold of 256)."""
+    from gpu_ray_tracing import make_scene
 
     spheres = one_weekend_scene(jax.random.key(0))
     scene = make_scene(spheres, sphere_bvh=True)
@@ -220,7 +203,7 @@ def test_pallas_sphere_bvh_matches_bruteforce():
 
 
 def test_sphere_bvh_structure():
-    from gpu_ray_tracing_tpu.ops.bvh import build_sphere_bvh, validate_bvh
+    from gpu_ray_tracing.ops.bvh import build_sphere_bvh, validate_bvh
 
     spheres = one_weekend_scene(jax.random.key(1)).pad_to_multiple(128)
     reordered, bvh = build_sphere_bvh(spheres)
@@ -233,7 +216,7 @@ def test_sphere_bvh_structure():
 
 def test_pallas_emissive_matches_jax():
     """Emissive + dark-sky scene agrees across backends."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     scene = make_spheres(
         [
@@ -254,11 +237,11 @@ def test_pallas_emissive_matches_jax():
 
 
 def test_pallas_smooth_mesh_matches_jax():
-    """Smooth vertex normals: interpolation in the VMEM-table leaf scan must
+    """Smooth vertex normals: interpolation in the triangle-table leaf scan must
     match the jax path's post-hit interpolation."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.mesh import icosphere, transform_mesh
-    from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.mesh import icosphere, transform_mesh
+    from gpu_ray_tracing.models.spheres import LAMBERTIAN, make_spheres
 
     spheres = make_spheres(
         [((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)]
@@ -358,8 +341,8 @@ def test_stratified_nee_matches_across_engines():
     """NEE + stratified sampler: the first-bounce cone-sample remap (salt
     8+l rotations) must draw identically in the jax integrator and the
     shared Pallas bounce physics."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     scene = make_scene(make_spheres(
         [
@@ -378,7 +361,7 @@ def test_stratified_nee_matches_across_engines():
     # On the CPU interpret path the two engines' NEE term accumulation fuses
     # differently (FMA contraction) and drifts ~1 ULP on this emissive scene —
     # measured identically WITHOUT the stratified remap, so it is not a stream
-    # divergence (on a real TPU both are bitwise-equal).  Allow float noise
+    # divergence.  Allow float noise
     # only; any stream divergence would be orders of magnitude larger.
     np.testing.assert_allclose(
         imgs["pallas"], imgs["wavefront"], rtol=1e-5, atol=1e-6
@@ -428,8 +411,8 @@ def test_adaptive_prefix_property():
 def test_adaptive_spp_map_and_quality():
     """A tight tolerance keeps the image near the full-budget render while
     the per-tile counts actually vary (sky tiles stop before the budget)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.megakernel import render_pallas
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.megakernel import render_pallas
 
     scene = one_weekend_scene(jax.random.key(0))
     cam = CameraSettings.default()
@@ -446,8 +429,13 @@ def test_adaptive_spp_map_and_quality():
     assert np.isfinite(img).all()
     assert smap.min() >= 4 and smap.max() <= spp
     assert smap.min() < smap.max()  # counts actually adapt
-    # Constant within each (32, 128)-padded tile.
-    assert np.unique(smap[:32]).size == 1
+    # Constant within each pixel block of the kernel.
+    from gpu_ray_tracing.ops.pallas import megakernel as mk
+
+    br, bc, _ = mk.block_shape("path")
+    for i in range(0, h, br):
+        for j in range(0, w, bc):
+            assert np.unique(smap[i:i + br, j:j + bc]).size == 1, (i, j)
     rel = np.abs(img - full).mean() / full.mean()
     assert rel < 0.02, rel
 
@@ -466,9 +454,9 @@ def test_adaptive_config_validation():
 def test_adaptive_rejected_for_progressive_and_sharded():
     import pytest
 
-    from gpu_ray_tracing_tpu import init_accum, progressive_step
-    from gpu_ray_tracing_tpu.parallel.mesh import make_mesh
-    from gpu_ray_tracing_tpu.parallel.sharding import render_sharded
+    from gpu_ray_tracing import init_accum, progressive_step
+    from gpu_ray_tracing.parallel.mesh import make_mesh
+    from gpu_ray_tracing.parallel.sharding import render_sharded
 
     scene = base_scene()
     cfg = _cfg(spp=8, backend="pallas", adaptive_tol=0.05)
@@ -482,11 +470,11 @@ def test_adaptive_rejected_for_progressive_and_sharded():
 
 def test_adaptive_progressive_matches_one_shot():
     """Chunked adaptive progressive steps reproduce the one-shot adaptive
-    render BITWISE on the same budget (VERDICT r4 item 5): the carried
+    render BITWISE on the same budget: the carried
     Welford state makes the kernel's stopping test identical at every
     absolute sample index, so converged tiles stop at the same sample in
     both runs and the raw sums accumulate in the same order."""
-    from gpu_ray_tracing_tpu import adaptive_progressive_step, init_adaptive_accum
+    from gpu_ray_tracing import adaptive_progressive_step, init_adaptive_accum
 
     scene = one_weekend_scene(jax.random.key(0))
     cam = CameraSettings.default()
@@ -511,7 +499,7 @@ def test_adaptive_progressive_matches_one_shot():
 
 
 def test_adaptive_progressive_validation():
-    from gpu_ray_tracing_tpu import adaptive_progressive_step, init_adaptive_accum
+    from gpu_ray_tracing import adaptive_progressive_step, init_adaptive_accum
 
     scene = base_scene()
     st = init_adaptive_accum(48, 64)
@@ -534,8 +522,8 @@ def test_mis_matches_across_engines():
     """nee+mis: the MIS weights live in the shared bounce physics; the
     engines must agree (the extra prev_cos plane is appended LAST so the
     mis=False programs are byte-identical to before)."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import (
         EMISSIVE, LAMBERTIAN, METAL, make_spheres,
     )
 
@@ -551,8 +539,8 @@ def test_mis_matches_across_engines():
                    nee=True, mis=True, sky_intensity=0.0)
         imgs[be] = np.asarray(render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(5)))
         assert np.isfinite(imgs[be]).all(), be
-    # 1-ULP tolerance for the CPU interpret path's fusion differences
-    # (bitwise-equal on real TPU, verified); any estimator divergence
+    # 1-ULP tolerance for the CPU interpret path's fusion differences;
+    # any estimator divergence
     # would be orders of magnitude larger.
     np.testing.assert_allclose(imgs["pallas"], imgs["wavefront"], rtol=1e-5, atol=1e-6)
     assert_images_match(imgs["jax"], imgs["pallas"], flip_frac=0.02, mean_tol=2e-3)
@@ -568,11 +556,11 @@ def test_mis_light_id_planes():
     order is light l (the exact order extract_lights emits); everything
     else -1.  This is the identity the MIS weight keys on — no geometric
     tolerance anywhere."""
-    from gpu_ray_tracing_tpu.models.scene import extract_lights
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing.models.scene import extract_lights
+    from gpu_ray_tracing.models.spheres import (
         EMISSIVE, LAMBERTIAN, METAL, make_spheres,
     )
-    from gpu_ray_tracing_tpu.ops.pallas.megakernel import _LIGHTID, scene_planes
+    from gpu_ray_tracing.ops.pallas.megakernel import _LIGHTID, scene_planes
 
     spheres = make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
@@ -596,8 +584,8 @@ def test_mis_tangent_lights_exact_identity():
     old r3 geometric tolerance of the big one (|d2p - r^2| <= 1e-2 r^2
     would mis-attribute ALL of them).  With identity matching the engines
     must agree and the estimator must stay finite and unbiased in shape."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import (
         EMISSIVE, LAMBERTIAN, make_spheres,
     )
 
@@ -623,14 +611,13 @@ def test_mis_tangent_lights_exact_identity():
 
 
 def test_ray_counters_analytic():
-    """In-kernel traced-ray counters against hand-derivable cases (VERDICT
-    r4 item 1): (a) all-sky rays trace exactly spp rays/pixel; (b) a camera
+    """In-kernel traced-ray counters against hand-derivable cases: (a) all-sky rays trace exactly spp rays/pixel; (b) a camera
     staring at an infinite diffuse ground traces exactly 2 rays/sample at
     depth 2 (primary + one scattered ray that then misses), and exactly 3
     with one valid NEE light (one driven shadow ray at the diffuse hit)."""
-    from gpu_ray_tracing_tpu import count_traced_rays, make_scene
-    from gpu_ray_tracing_tpu.models.camera import CameraSettings
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing import count_traced_rays, make_scene
+    from gpu_ray_tracing.models.camera import CameraSettings
+    from gpu_ray_tracing.models.spheres import (
         EMISSIVE, LAMBERTIAN, make_spheres,
     )
 
@@ -670,8 +657,8 @@ def test_ray_counters_analytic():
 
 def _jax_ray_count(scene, cam, w, h, spp, depth, frame_seed, **kw):
     """Independent trace_path counters summed over the same sample stream."""
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
-    from gpu_ray_tracing_tpu.ops.integrators import trace_path
+    from gpu_ray_tracing.ops import rays as rays_ops
+    from gpu_ray_tracing.ops.integrators import trace_path
 
     total = np.zeros((h, w), np.float32)
     for s in range(spp):
@@ -693,12 +680,12 @@ def test_ray_counters_match_across_engines():
     through the known CPU-interpret ULP decision flips (the same flips
     assert_images_match tolerates on images) — totals must still agree to
     well under 1%."""
-    from gpu_ray_tracing_tpu import count_traced_rays, make_scene
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.models.spheres import (
+    from gpu_ray_tracing import count_traced_rays, make_scene
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.models.spheres import (
         DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL, make_spheres,
     )
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     w, h, spp = 48, 32, 4
     cam = derive_camera(BASE_CAMERA, w, h)
@@ -770,43 +757,37 @@ def test_aov_modes_match_across_engines():
         ], atol=1e-5)
 
 
-def test_brute_scan_unroll_is_bitwise_invisible(monkeypatch):
-    """Small-scene scans unroll to straight-line code (GRT_BRUTE_UNROLL);
-    the unrolled and fori_loop forms run the same ops in the same order, so
-    a path render must be BITWISE identical either way.  clear_caches
-    between renders: the bound is a module constant consumed at trace time,
-    not part of any jit cache key."""
-    from gpu_ray_tracing_tpu.ops.pallas import megakernel as mk
+@pytest.mark.parametrize("block", [(8, 32, 2), (16, 32, 4)])
+def test_block_shape_is_bitwise_invisible(monkeypatch, block):
+    """Every draw is a function of the global pixel id, so on a brute-scan
+    scene the pixel block shape (rows x cols, warps) must
+    leave a path render BITWISE unchanged — including frames that do not
+    divide into whole blocks.  clear_caches between renders: the shape is
+    a module constant consumed at trace time, not part of any jit key."""
+    from gpu_ray_tracing.ops.pallas import megakernel as mk
 
     scene = base_scene()
-    cfg = _cfg(spp=2, max_depth=8, backend="pallas", nee=False)
-    imgs = {}
-    for bound in (0, 8):
-        monkeypatch.setattr(mk, "BRUTE_UNROLL_MAX", bound)
-        jax.clear_caches()
-        imgs[bound] = np.asarray(
-            render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3))
-        )
+    cfg = _cfg(width=40, height=20, spp=2, max_depth=6, backend="pallas")
+    ref = np.asarray(render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3)))
+    monkeypatch.setattr(mk, "PATH_BLOCK", block)
     jax.clear_caches()
-    np.testing.assert_array_equal(imgs[0], imgs[8])
+    img = np.asarray(render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3)))
+    jax.clear_caches()
+    np.testing.assert_array_equal(ref, img)
 
 
-def test_bounce_unroll_is_bitwise_invisible(monkeypatch):
-    """Pair-unrolled bounce stepping (GRT_BOUNCE_UNROLL) gates the extra
-    applications through the alive plane, so a path render — including an
-    ODD max_depth, where the final pair overshoots and must be a no-op —
-    is BITWISE identical at any factor, with identical ray counters."""
-    from gpu_ray_tracing_tpu.ops.pallas import megakernel as mk
+@pytest.mark.parametrize("integrator", ["normal", "albedo", "depth"])
+def test_aov_block_shape_is_bitwise_invisible(monkeypatch, integrator):
+    """The AOV modes have their own block; it too must leave the image
+    bitwise unchanged."""
+    from gpu_ray_tracing.ops.pallas import megakernel as mk
 
     scene = base_scene()
-    cfg = _cfg(spp=2, max_depth=7, backend="pallas", nee=False)
-    imgs = {}
-    for factor in (1, 2, 3):
-        monkeypatch.setattr(mk, "BOUNCE_UNROLL", factor)
-        jax.clear_caches()
-        imgs[factor] = np.asarray(
-            render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3))
-        )
+    cfg = _cfg(width=40, height=20, spp=2, integrator=integrator, backend="pallas")
+    ref = np.asarray(render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3)))
+    monkeypatch.setattr(mk, "AOV_BLOCK", (2, 16, 1))
+    assert mk.block_shape(integrator) == (2, 16, 1)
     jax.clear_caches()
-    np.testing.assert_array_equal(imgs[1], imgs[2])
-    np.testing.assert_array_equal(imgs[1], imgs[3])
+    img = np.asarray(render(scene, BASE_CAMERA, cfg, frame_seed=jnp.uint32(3)))
+    jax.clear_caches()
+    np.testing.assert_array_equal(ref, img)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu.ops import rng
+from gpu_ray_tracing.ops import rng
 
 
 def _hash_py(value: int) -> int:
@@ -95,7 +95,7 @@ def test_pixel_seeds_match_get_ray_derivation():
 
 def test_uniform_hash_24bit_construction():
     """uniform_hash = (hash2 >> 8) / 2^24 — exactly representable f32s."""
-    from gpu_ray_tracing_tpu.ops.rng import hash2, uniform_hash
+    from gpu_ray_tracing.ops.rng import hash2, uniform_hash
 
     seeds = jnp.arange(0, 4096, dtype=jnp.uint32)
     u = np.asarray(uniform_hash(seeds, 3))
@@ -106,7 +106,7 @@ def test_uniform_hash_24bit_construction():
 
 
 def test_uniform_hash_salts_decorrelated():
-    from gpu_ray_tracing_tpu.ops.rng import uniform_hash
+    from gpu_ray_tracing.ops.rng import uniform_hash
 
     seeds = jnp.arange(0, 10000, dtype=jnp.uint32)
     a = np.asarray(uniform_hash(seeds, 1))

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpu_ray_tracing_tpu.models.spheres import (
+from gpu_ray_tracing.models.spheres import (
     DIELECTRIC,
     LAMBERTIAN,
     METAL,
@@ -130,7 +130,7 @@ def test_nee_mesh_scene_renders_under_jit():
     every such render (review-confirmed crash)."""
     import pytest
 
-    from gpu_ray_tracing_tpu import (
+    from gpu_ray_tracing import (
         CameraSettings,
         RenderConfig,
         icosphere,
@@ -138,7 +138,7 @@ def test_nee_mesh_scene_renders_under_jit():
         render,
         transform_mesh,
     )
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     ground = make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.5, 0.5, 0.5), 0.0),
@@ -193,7 +193,7 @@ def test_nee_mesh_scene_renders_under_jit():
     with pytest.raises(ValueError, match="tri_lights"):
         render(no_tl, cam, cfg, frame_seed=jnp.uint32(1))
 
-    from gpu_ray_tracing_tpu.models.scene import Scene
+    from gpu_ray_tracing.models.scene import Scene
 
     plain = Scene(spheres=scene.spheres, mesh=scene.mesh, bvh=scene.bvh,
                   lights=scene.lights, bvh_leaf_size=scene.bvh_leaf_size)
@@ -220,9 +220,9 @@ def test_nee_mesh_scene_renders_under_jit():
 def test_pallas_spp_zero_rejected():
     import pytest
 
-    from gpu_ray_tracing_tpu import CameraSettings, base_scene
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.megakernel import render_pallas
+    from gpu_ray_tracing import CameraSettings, base_scene
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.megakernel import render_pallas
 
     cam = derive_camera(CameraSettings.default(), 16, 8)
     with pytest.raises(ValueError, match="spp"):

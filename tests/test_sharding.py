@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     CameraSettings,
     RenderConfig,
     base_scene,
@@ -20,8 +20,8 @@ from gpu_ray_tracing_tpu import (
     one_weekend_scene,
     render,
 )
-from gpu_ray_tracing_tpu.parallel.mesh import ROW_AXIS, make_mesh
-from gpu_ray_tracing_tpu.parallel.sharding import (
+from gpu_ray_tracing.parallel.mesh import ROW_AXIS, make_mesh
+from gpu_ray_tracing.parallel.sharding import (
     progressive_step_sharded,
     render_sharded,
     shard_accum_state,
@@ -127,7 +127,7 @@ def test_progressive_sharded_resumed_straddle_freezes_at_target(scene):
     """A checkpoint resumed at a count misaligned to the spp-axis batch
     straddles the target; fold_sample folds only the taken fraction so the
     sharded step freezes exactly at config.spp (r3 review finding)."""
-    from gpu_ray_tracing_tpu.ops.accumulate import AccumState
+    from gpu_ray_tracing.ops.accumulate import AccumState
 
     mesh = make_mesh(4, 2)  # 2-sample batches
     cfg = _cfg(spp=4)
@@ -216,7 +216,7 @@ def test_interleaved_kernel_backends(scene):
 def test_interleaved_progressive_accum_image(scene):
     """Sharded progressive state stays in partition order; accum_image
     restores image order at materialization."""
-    from gpu_ray_tracing_tpu.parallel.sharding import accum_image
+    from gpu_ray_tracing.parallel.sharding import accum_image
 
     mesh = make_mesh(8, 1)
     cfg = _cfg(spp=2)
@@ -263,8 +263,8 @@ def test_sharded_mis_matches_unsharded():
     """nee+mis under row x spp sharding: the MIS weights are elementwise
     functions of per-lane state carried within each shard, so the sharded
     image must match the unsharded render."""
-    from gpu_ray_tracing_tpu import make_scene
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import make_scene
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     sc = make_scene(make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
@@ -300,8 +300,8 @@ def test_adaptive_row_sharded_prefix_property(scene):
 
 
 def test_adaptive_row_sharded_matches_unsharded(scene):
-    """With 32-row-aligned contiguous bands each shard sees exactly the
-    tiles the unsharded frame has (same pixels, same draws), so the
+    """With block-aligned contiguous bands (32 rows) each shard sees exactly
+    the blocks the unsharded frame has (same pixels, same draws), so the
     per-tile Welford exits match and the sharded adaptive image agrees
     with the unsharded adaptive render up to per-shape rounding."""
     mesh = make_mesh(4, 1)

@@ -4,7 +4,7 @@ Round-4 feature: make_scene extracts emissive, non-degenerate mesh faces
 into Scene.tri_lights; NEE area-samples them and MIS weighs BSDF-ray face
 hits via the triangle table's light-id slot.  Sphere and triangle lights
 share ONE ordinal space (spheres first), so the RNG salts, the MIS
-identity planes, and the kernel SMEM layouts line up across all three
+identity planes, and the kernels' light tables line up across all three
 engines.  The reference has neither meshes nor NEE (compute_shader.wgsl
 is BSDF-only over spheres); these tests validate the extension against
 analytic integrals and cross-engine agreement instead.
@@ -18,18 +18,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import RenderConfig, make_scene, render
-from gpu_ray_tracing_tpu.models.mesh import make_mesh, merge_meshes
-from gpu_ray_tracing_tpu.models.scene import (
+from gpu_ray_tracing import RenderConfig, make_scene, render
+from gpu_ray_tracing.models.mesh import make_mesh, merge_meshes
+from gpu_ray_tracing.models.scene import (
     extract_tri_lights,
     tri_light_id_per_face,
 )
-from gpu_ray_tracing_tpu.models.spheres import (
+from gpu_ray_tracing.models.spheres import (
     EMISSIVE,
     LAMBERTIAN,
     make_spheres,
 )
-from gpu_ray_tracing_tpu.ops.integrators import trace_path
+from gpu_ray_tracing.ops.integrators import trace_path
 from tests.test_api import BASE_CAMERA
 from tests.test_sharding import assert_images_match
 
@@ -213,8 +213,8 @@ def test_tri_lights_estimators_agree():
     their high-spp means must converge to the same integral."""
     scene = _mixed_scene()
 
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     cam = derive_camera(BASE_CAMERA, 32, 24)
 
@@ -246,7 +246,7 @@ def test_tri_lights_guards():
     every engine (it would silently drop the mesh lights from NEE); MIS
     above 4 lights renders finite (the late-r4 pick-pdf-weighted
     estimator — the old cap is gone)."""
-    from gpu_ray_tracing_tpu.models.mesh import icosphere, transform_mesh
+    from gpu_ray_tracing.models.mesh import icosphere, transform_mesh
 
     big = transform_mesh(
         icosphere(1, albedo=(1.0, 0.9, 0.8), mat_kind=EMISSIVE,
@@ -286,8 +286,8 @@ def _many_lights_mean_render(scene, frame_seed, nee, mis, spp):
     """Shared 32x24 jax-path render over the many-lights scene (the 512-spp
     runs dominate this module's wall time, so the plain-NEE baseline is
     computed once and reused across the unbiasedness assertions)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     cam = derive_camera(BASE_CAMERA, 32, 24)
     acc = jnp.zeros((24, 32, 3), jnp.float32)
@@ -398,8 +398,8 @@ def test_sphere_only_pick_mis():
     scene = make_scene(make_spheres(rows))
     assert scene.lights.count == 6 and scene.tri_lights is None
 
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops import rays as rays_ops
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops import rays as rays_ops
 
     cam = derive_camera(BASE_CAMERA, 32, 24)
 
@@ -441,7 +441,7 @@ def test_cornell_box_scene():
     triangles, finite lit image with nee+mis, near-black without NEE at
     1 spp (BSDF rays almost never find the lamp — the estimator gap the
     feature exists for)."""
-    from gpu_ray_tracing_tpu import cornell_box_scene, cornell_camera
+    from gpu_ray_tracing import cornell_box_scene, cornell_camera
 
     scene = cornell_box_scene()
     assert scene.tri_lights is not None and scene.tri_lights.count == 2
@@ -461,8 +461,8 @@ def test_cornell_box_scene():
 def test_tri_lights_row_shard_invariant():
     """Row-sharded rendering must reproduce the unsharded tri-light image:
     the NEE draws ride the global-pixel-id counter streams."""
-    from gpu_ray_tracing_tpu.parallel.mesh import make_mesh as make_dev_mesh
-    from gpu_ray_tracing_tpu.parallel.sharding import render_sharded
+    from gpu_ray_tracing.parallel.mesh import make_mesh as make_dev_mesh
+    from gpu_ray_tracing.parallel.sharding import render_sharded
 
     scene = _mixed_scene()
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=4,

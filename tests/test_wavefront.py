@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_ray_tracing_tpu import (
+from gpu_ray_tracing import (
     CameraSettings,
     RenderConfig,
     base_scene,
@@ -64,9 +64,9 @@ def test_wavefront_one_weekend_with_sphere_bvh_and_rr():
 
 
 def test_wavefront_mesh_scene():
-    from gpu_ray_tracing_tpu import transform_mesh
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import transform_mesh
+    from gpu_ray_tracing.models.mesh import icosphere
+    from gpu_ray_tracing.models.spheres import LAMBERTIAN, make_spheres
 
     spheres = make_spheres(
         [((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)]
@@ -95,7 +95,7 @@ def test_wavefront_mesh_scene():
 
 def test_wavefront_nee_matches_jax():
     """<=4 lights NEE loops over all lights -> stream-identical to pallas."""
-    from gpu_ray_tracing_tpu.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
+    from gpu_ray_tracing.models.spheres import EMISSIVE, LAMBERTIAN, make_spheres
 
     scene = make_scene(make_spheres([
         ((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.6, 0.6, 0.6), 0.0),
@@ -119,7 +119,7 @@ def test_wavefront_nee_matches_jax():
 
 
 def test_wavefront_progressive_step():
-    from gpu_ray_tracing_tpu import init_accum, progressive_step
+    from gpu_ray_tracing import init_accum, progressive_step
 
     scene = base_scene()
     cfg = _cfg(spp=4, backend="wavefront")
@@ -153,8 +153,8 @@ def test_wavefront_requires_hash_rng():
 def test_wavefront_row_shard_offset_matches_full_frame():
     """render_wavefront(y_offset, total_width) must reproduce the matching
     rows of the full-frame render exactly (global pixel ids -> same stream)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     w, h = 50, 32
@@ -172,8 +172,8 @@ def test_wavefront_row_shard_offset_matches_full_frame():
 def test_wavefront_sharded_render_matches_unsharded():
     """render_sharded with backend='wavefront' over an 8-device mesh equals
     the single-device wavefront render."""
-    from gpu_ray_tracing_tpu.parallel.mesh import make_mesh
-    from gpu_ray_tracing_tpu.parallel.sharding import render_sharded
+    from gpu_ray_tracing.parallel.mesh import make_mesh
+    from gpu_ray_tracing.parallel.sharding import render_sharded
 
     scene = base_scene()
     cfg = _cfg(width=32, height=32, spp=2, max_depth=4, backend="wavefront")
@@ -188,8 +188,8 @@ def test_wavefront_compact_threshold_is_invisible():
     """Occupancy-gated compaction (skip the row permutation while most rows
     are live) must not change the image: always / never / default-gated
     renders are bitwise identical on a brute-scan scene."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     w, h = 48, 32
@@ -207,10 +207,10 @@ def test_wavefront_sort_modes_are_invisible():
     """Row sort keys (live partition / direction octant / origin-cell x
     octant spatial binning) only permute whole rows between bounces; the
     per-lane streams and elementwise accumulation are untouched, so every
-    sort mode renders the bitwise-identical image (VERDICT r4 item 4
-    lever (a): the spatial keys are a pure scheduling choice)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    sort mode renders the bitwise-identical image (the spatial keys are a
+    pure scheduling choice)."""
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = make_scene(one_weekend_scene(jax.random.key(0)), sphere_bvh=True)
     w, h = 64, 36
@@ -234,7 +234,7 @@ def test_wavefront_sort_modes_are_invisible():
 
 
 def _assert_regen_matches_plain(scene, cam, tol=3e-5, **kw):
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     a = np.asarray(render_wavefront(scene, cam, **kw))
     b = np.asarray(render_wavefront(scene, cam, regenerate=True, **kw))
@@ -251,8 +251,8 @@ def test_wavefront_regen_matches_plain_spp4():
     next sample's primaries) must be invisible to the estimator.  The scene
     has a sphere BVH, so regrouped tiles can flip a few borderline far-root
     decisions (the standard sphere-BVH contract) — compare images, not bits."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = make_scene(one_weekend_scene(jax.random.key(0)), sphere_bvh=True)
     assert scene.sphere_bvh is not None
@@ -272,7 +272,7 @@ def test_wavefront_regen_nonzero_sample_base_and_odd_frame():
     """Regeneration carries ABSOLUTE per-lane sample ids: a pool starting at
     sample_index=5 must reproduce the plain engine's samples 5..7; odd
     resolutions exercise the pad lanes born dead at refill."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
+    from gpu_ray_tracing.models.camera import derive_camera
 
     scene = base_scene()
     w, h = 50, 31
@@ -286,8 +286,8 @@ def test_wavefront_regen_nonzero_sample_base_and_odd_frame():
 def test_wavefront_regen_refill_threshold_is_invisible():
     """The refill gate (when to spend the whole-pool raygen pass) is a pure
     scheduling decision; any threshold draws the same streams."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     w, h = 48, 32
@@ -303,8 +303,8 @@ def test_wavefront_regen_refill_threshold_is_invisible():
 def test_wavefront_regen_row_shard_matches_full_frame():
     """Sharded regeneration: global pixel ids keep the stream shard-invariant
     (each shard's pool regenerates independently)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     w, h = 50, 32
@@ -322,10 +322,10 @@ def test_wavefront_regen_row_shard_matches_full_frame():
 
 def test_wavefront_regen_many_lights_nee():
     """Regeneration with >4 emissive lights exercises the PER-LANE light
-    pick (masked SMEM accumulation): rays in a tile mix (sample, bounce),
+    pick (masked accumulation): rays in a tile mix (sample, bounce),
     but each ray must pick the exact light the scalar-pick engines pick for
     its (sample, bounce)."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
+    from gpu_ray_tracing.models.camera import derive_camera
     from tests.test_integrators import _many_lights_fixture
 
     lights, scene_with = _many_lights_fixture()
@@ -350,10 +350,10 @@ def test_wavefront_regen_many_lights_nee():
 
 def test_wavefront_regen_mesh_scene():
     """Regeneration through the mesh + BVH leaf-scan path."""
-    from gpu_ray_tracing_tpu import transform_mesh
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.models.mesh import icosphere
-    from gpu_ray_tracing_tpu.models.spheres import LAMBERTIAN, make_spheres
+    from gpu_ray_tracing import transform_mesh
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.models.mesh import icosphere
+    from gpu_ray_tracing.models.spheres import LAMBERTIAN, make_spheres
 
     spheres = make_spheres(
         [((0, -1000.0, 0), 1000.0, LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)]
@@ -381,8 +381,8 @@ def test_wavefront_regen_mesh_scene():
 def test_wavefront_regen_validates_refill_threshold():
     """refill_threshold outside [0, 1] could stall the pool loop forever;
     it must be rejected at trace time."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     cam = derive_camera(BASE_CAMERA, 32, 16)
@@ -397,7 +397,7 @@ def test_wavefront_regen_validates_refill_threshold():
 def test_wavefront_regen_spp1_degenerate_pool():
     """spp=1 regeneration has nothing to refill (the pool IS the stream):
     it must still terminate and match the plain engine."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
+    from gpu_ray_tracing.models.camera import derive_camera
 
     scene = base_scene()
     w, h = 48, 32
@@ -411,8 +411,8 @@ def test_wavefront_regen_spp1_degenerate_pool():
 def test_wavefront_regen_depth_zero_is_black():
     """max_depth=0 renders black on every engine; the pool loop must not
     trace a bounce first."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     cam = derive_camera(BASE_CAMERA, 32, 16)
@@ -470,8 +470,8 @@ def test_wavefront_regen_sobol_sampler():
     """The regenerating pool mixes per-lane (sample, bounce) ids; the sobol
     sampler's per-lane index arithmetic must give every ray the identical
     low-discrepancy point it gets in the sample-major loop."""
-    from gpu_ray_tracing_tpu.models.camera import derive_camera
-    from gpu_ray_tracing_tpu.ops.pallas.wavefront import render_wavefront
+    from gpu_ray_tracing.models.camera import derive_camera
+    from gpu_ray_tracing.ops.pallas.wavefront import render_wavefront
 
     scene = base_scene()
     w, h = 64, 48
